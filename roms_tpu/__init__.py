@@ -1,4 +1,4 @@
-"""roms_tpu: a TPU-native regional ocean dynamical core (JAX/XLA/Pallas).
+"""roms_tpu: a regional ocean dynamical core in JAX, compiled by XLA.
 
 Built from scratch with the capabilities of ROMS 3.9 (the reference at
 joaobuibergen/roms-trunk-mgh): free-surface, hydrostatic primitive equations

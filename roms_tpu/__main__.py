@@ -28,12 +28,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from .utils.yamlcfg import CASES, build_from_yaml, build_from_dict
+    from .utils import compcache
 
     if args.cmd == "cases":
         for name in sorted(CASES):
             print(name)
         return 0
 
+    compcache.enable()
     if args.yaml:
         cfg, grid, state0, ffn, opts = build_from_yaml(args.yaml)
     else:

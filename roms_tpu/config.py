@@ -127,9 +127,6 @@ class Config:
     nfast: int = 0          # actual fast loop length; set by finalize()
     dstart: float = 0.0     # start day
     solve3d: bool = True
-    # Fused Pallas fast-loop kernel on TPU when the configuration allows
-    # (ops/step2d_pallas.supported); the jnp path is the fallback.
-    pallas2d: bool = True
 
     # --- Vertical coordinate (set_scoord.F) ---
     vtransform: int = 2

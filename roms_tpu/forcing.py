@@ -1,7 +1,7 @@
 """Time-dependent input forcing: snapshot series with linear time
 interpolation and cycling.
 
-TPU-native equivalent of the reference's forcing pipeline
+JAX equivalent of the reference's forcing pipeline
 (ROMS/Utility/get_cycle.F cycle resolution, get_2dfld/get_3dfld.F
 snapshot reads, set_2dfld/set_3dfld.F two-snapshot linear time
 interpolation, called per step from get_data/set_data - main3d.F:207,

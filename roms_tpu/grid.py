@@ -16,14 +16,14 @@ from typing import Callable, Optional
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from .pytree import dataclass as pytree_dataclass
 from . import constants as C
 from .config import Config
 from . import vgrid
 
 
-@struct.dataclass
+@pytree_dataclass
 class Grid:
     """Static grid arrays (a JAX pytree; all padded to (ny_tot, nx_tot))."""
 

@@ -1,60 +1,31 @@
 """Perfect-restart checkpointing.
 
 The reference's RST stream (def_rst/wrt_rst/get_state with PERFECT_RESTART,
-SURVEY.md §5.4) maps to an Orbax checkpoint of the full State pytree: all
-explicit time levels and filter accumulators are State fields, so a
-restored run is bit-identical (tests/test_step3d.py::test_restart_equivalence).
-Falls back to .npz when orbax is unavailable.
+SURVEY.md §5.4) maps to one numpy ``.npz`` archive of the full State
+pytree's leaves in flattening order: all explicit time levels and filter
+accumulators are State fields, so a restored run is bit-identical
+(tests/test_step3d.py::test_restart_equivalence).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
 
 import jax
 import numpy as np
 
-try:
-    import orbax.checkpoint as ocp
-    _HAVE_ORBAX = True
-except Exception:          # pragma: no cover
-    _HAVE_ORBAX = False
-
-
-def _strip_empty(tree):
-    """Orbax refuses zero-size arrays (e.g. the bed_mass placeholder when
-    the sediment model is off); replace them with None for the save and
-    splice the template's empties back on restore."""
-    return jax.tree_util.tree_map(
-        lambda x: None if np.size(x) == 0 else x, tree)
-
 
 def save(path: str, state) -> None:
-    path = os.path.abspath(path)
-    if _HAVE_ORBAX:
-        ckptr = ocp.StandardCheckpointer()
-        ckptr.save(path, _strip_empty(jax.device_get(state)), force=True)
-        ckptr.wait_until_finished()
-    else:
-        leaves, treedef = jax.tree_util.tree_flatten(state)
-        np.savez(path + ".npz", *[np.asarray(x) for x in leaves])
+    """Write ``<path>.npz``."""
+    leaves = jax.tree_util.tree_leaves(jax.device_get(state))
+    np.savez(os.path.abspath(path) + ".npz",
+             *[np.asarray(x) for x in leaves])
 
 
 def restore(path: str, template):
     """Restore into the structure of `template` (a State of the right
     shapes/dtypes)."""
-    path = os.path.abspath(path)
-    if _HAVE_ORBAX and os.path.isdir(path):
-        ckptr = ocp.StandardCheckpointer()
-        out = ckptr.restore(path, _strip_empty(jax.device_get(template)))
-        leaves_t, treedef = jax.tree_util.tree_flatten(template)
-        leaves_o = jax.tree_util.tree_flatten(
-            out, is_leaf=lambda x: x is None)[0]
-        return jax.tree_util.tree_unflatten(
-            treedef, [t if o is None else o
-                      for t, o in zip(leaves_t, leaves_o)])
-    data = np.load(path + ".npz")
     leaves, treedef = jax.tree_util.tree_flatten(template)
-    new = [data[f"arr_{i}"] for i in range(len(leaves))]
+    with np.load(os.path.abspath(path) + ".npz") as data:
+        new = [data[f"arr_{i}"] for i in range(len(leaves))]
     return jax.tree_util.tree_unflatten(treedef, new)

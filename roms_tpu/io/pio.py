@@ -2,7 +2,7 @@
 
 The reference's PIO path (ROMS/Modules/mod_pio_netcdf.F) lets every MPI
 rank write its tile of each field directly, avoiding the master-rank
-gather that serializes output at scale.  The TPU-native analog: each
+gather that serializes output at scale.  The JAX analog: each
 JAX process writes ONLY its addressable shards of the NamedSharding'd
 arrays to a process-local part file (`<base>.pNNN.nc`, NetCDF3 via
 scipy, one variable per shard with global interior offsets recorded as

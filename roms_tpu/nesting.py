@@ -1,6 +1,6 @@
 """Refinement-grid nesting (mod_nesting.F / nesting.F / set_contact.F).
 
-TPU-native take on the reference's refinement nesting (nesting.F:41-60
+JAX take on the reference's refinement nesting (nesting.F:41-60
 get_composite/put_refine, fine2coarse two-way averaging): a fine grid
 covers a rectangular block of parent cells with an integer refinement
 `factor`; each parent step drives `factor` fine steps whose lateral
@@ -9,7 +9,7 @@ the parent grid) and time (linear between the bracketing parent
 states).  Two-way feedback replaces the covered parent cells with
 conservative block averages of the fine solution.
 
-Design notes (TPU-first):
+Design notes:
 - The contact-point machinery (set_contact.F's NetCDF contact files,
   sparse donor/receiver index lists) collapses to dense fractional-index
   bilinear gathers: the parent grids here are uniform rectilinear, so

@@ -1,6 +1,6 @@
 """Wave-current bottom boundary layer (SSW closure).
 
-TPU-native equivalent of ROMS/Nonlinear/bbl.F + ssw_bbl.h (Sherwood,
+JAX equivalent of ROMS/Nonlinear/bbl.F + ssw_bbl.h (Sherwood,
 Signell & Warner; M94WC + SSW_CALC_UB + SSW_CALC_ZNOT + N92_RIPRUF
 variant): combined wave-current bottom stress from the Madsen (1994)
 wave boundary layer model, with moveable-bed roughness (Nikuradse +

@@ -58,29 +58,11 @@ def current_ctx() -> Optional[ParCtx]:
     return getattr(_TLS, "ctx", None)
 
 
-def push_masked():
-    """Masked-writes mode: boundary writes become jnp.where with iota
-    masks instead of .at[].set (which lowers to an XLA scatter).  Used
-    inside Pallas kernels, where Mosaic has no scatter lowering;
-    numerically identical."""
-    _TLS.masked = True
-
-
-def pop_masked():
-    _TLS.masked = False
-
-
-def _masked_mode() -> bool:
-    return getattr(_TLS, "masked", False)
-
-
 def _owns(ctx: ParCtx, side: str):
     return getattr(ctx, side)
 
 
 def _col_mask(f, a):
-    # 2-D broadcasted_iota: Mosaic (Pallas TPU) supports neither 1-D
-    # iota nor minor-dim insertion on i1 vectors
     nx = f.shape[-1]
     ii = jax.lax.broadcasted_iota(jnp.int32, (1, nx), 1)
     return ii == (a % nx)
@@ -202,8 +184,6 @@ def _set_col(f, a_dst, values, side=None):
     if ctx is not None and side is not None:
         return jnp.where(_owns(ctx, side) & _col_mask(f, a_dst),
                          _colvals(values), f)
-    if _masked_mode():
-        return jnp.where(_col_mask(f, a_dst), _colvals(values), f)
     return f.at[..., :, a_dst].set(values)
 
 
@@ -212,8 +192,6 @@ def _set_row(f, a_dst, values, side=None):
     if ctx is not None and side is not None:
         return jnp.where(_owns(ctx, side) & _row_mask(f, a_dst),
                          _rowvals(values), f)
-    if _masked_mode():
-        return jnp.where(_row_mask(f, a_dst), _rowvals(values), f)
     return f.at[..., a_dst, :].set(values)
 
 
@@ -227,8 +205,6 @@ def add_col(f, a_dst, delta, side=None):
     if ctx is not None and side is not None:
         return f + jnp.where(_owns(ctx, side) & _col_mask(f, a_dst),
                              _colvals(delta), 0.0)
-    if _masked_mode():
-        return f + jnp.where(_col_mask(f, a_dst), _colvals(delta), 0.0)
     return f.at[..., :, a_dst].add(delta)
 
 
@@ -237,8 +213,6 @@ def add_row(f, a_dst, delta, side=None):
     if ctx is not None and side is not None:
         return f + jnp.where(_owns(ctx, side) & _row_mask(f, a_dst),
                              _rowvals(delta), 0.0)
-    if _masked_mode():
-        return f + jnp.where(_row_mask(f, a_dst), _rowvals(delta), 0.0)
     return f.at[..., a_dst, :].add(delta)
 
 

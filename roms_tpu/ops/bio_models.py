@@ -1,6 +1,6 @@
 """Additional ecosystem models: NPZD-Franks, NPZD-iron, Fennel BGC.
 
-TPU-native re-implementations of the reference's biology.F plugins
+JAX re-implementations of the reference's biology.F plugins
 (ROMS/Nonlinear/Biology/):
 
  * npzd_Franks.h  - classic Franks et al. (1986) NPZD

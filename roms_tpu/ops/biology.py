@@ -6,7 +6,7 @@ slot).  Four nitrogen-based compartments - nitrate (N), phytoplankton
 passive tracers by step3d_t, with the food-web conversions applied here
 as a chained sequence of backward-implicit stages.
 
-Design notes (TPU-first):
+Design notes:
 - Every conversion stage treats the consumed compartment implicitly
   (divide by 1+cff) and adds cff * consumed to the consumer, so each
   stage conserves total nitrogen exactly and never produces negatives

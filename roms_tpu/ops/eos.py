@@ -106,33 +106,6 @@ def rho_eos(cfg: Config, t, z_r):
     return rho
 
 
-def rho_eos_pden_bvf(cfg: Config, t, z_r, z_w):
-    """(rho, pden, bvf) with the JM95 polynomials evaluated ONCE
-    (rho_eos.F computes den/den1 and bvf in the same sweep; the
-    separate rho_eos_pden + brunt_vaisala calls each re-evaluate the
-    den1/K polynomials - this fused form halves the EOS arithmetic in
-    the Pallas diag kernel)."""
-    temp = t[0]
-    salt = t[1] if cfg.ntracers >= 2 else jnp.zeros_like(temp)
-    zero = jnp.zeros_like(z_w[:1])
-    dz = z_r[1:] - z_r[:-1]
-    if cfg.eos == "linear":
-        rho = rho_linear(cfg, temp, salt)
-        bvf = -(C.g / cfg.rho0) * (rho[1:] - rho[:-1]) / dz
-        return rho, rho, jnp.concatenate([zero, bvf, zero], axis=0)
-    den1, K0, K1, K2 = _jm95_parts(temp, salt)
-    bulk = K0 - z_r * (K1 - z_r * K2)
-    den = (den1 * bulk) / (bulk + 0.1 * z_r)
-    zwk = z_w[1:-1]
-    bulk_up = K0[1:] - zwk * (K1[1:] - K2[1:] * zwk)
-    bulk_dn = K0[:-1] - zwk * (K1[:-1] - K2[:-1] * zwk)
-    den_up = den1[1:] * bulk_up / (bulk_up + 0.1 * zwk)
-    den_dn = den1[:-1] * bulk_dn / (bulk_dn + 0.1 * zwk)
-    bvf = -C.g * (den_up - den_dn) / (0.5 * (den_up + den_dn) * dz)
-    return (den - 1000.0, den1 - 1000.0,
-            jnp.concatenate([zero, bvf, zero], axis=0))
-
-
 def rho_eos_pden(cfg: Config, t, z_r):
     """(in-situ density anomaly, potential density anomaly) - the
     reference returns both (rho, pden); for the linear EOS they coincide

@@ -55,14 +55,12 @@ def _set_ring(qo, ab, qb, side):
     the physical side and expressed as a masked where (no scatter)."""
     from . import bc as _bc
     ctx = _bc.current_ctx()
-    if ctx is None and not _bc._masked_mode():
+    if ctx is None:
         return qo.at[..., ab].set(qb)
     import jax
     n = qo.shape[-1]
     ii = jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)
-    m = ii == (ab % n)
-    if ctx is not None:
-        m = _bc._owns(ctx, side) & m
+    m = _bc._owns(ctx, side) & (ii == (ab % n))
     return jnp.where(m, qb[..., None], qo)
 
 

@@ -22,31 +22,14 @@ def set_massflux(cfg: Config, grid: Grid, u, v, Hz):
     return bc.fill_halo(cfg, Huon), bc.fill_halo(cfg, Hvom)
 
 
-def cumsum_unrolled(x, axis=0):
-    """Statically-unrolled jnp.cumsum along the leading axis, for use
-    inside Pallas kernels (Mosaic serializes cumsum poorly and cannot
-    lower the scan form)."""
-    assert axis == 0
-    acc = x[0]
-    outs = [acc]
-    for k in range(1, x.shape[0]):
-        acc = acc + x[k]
-        outs.append(acc)
-    return jnp.stack(outs, axis=0)
-
-
-def omega(cfg: Config, grid: Grid, Huon, Hvom, z_w, cumsum_fn=None):
+def omega(cfg: Config, grid: Grid, Huon, Hvom, z_w):
     """S-coordinate vertical mass flux W (N+1,Ny,Nx) from continuity
     (omega.F): bottom-up integral of the horizontal flux divergence, with
     the moving-grid correction that enforces W=0 at the free surface.
-    Halo filled with zero-gradient BCs (bc_w3d + exchange).
-
-    cumsum_fn overrides jnp.cumsum (the Pallas kernel substitutes the
-    statically-unrolled form).  Positive scalar indices only - see
-    ops/prsgrd.py."""
+    Halo filled with zero-gradient BCs (bc_w3d + exchange)."""
     N = Huon.shape[0]
     div = (ip1(Huon) - Huon) + (jp1(Hvom) - Hvom)     # (N,...) at rho
-    Wk = -(cumsum_fn or jnp.cumsum)(div, axis=0)      # k=1..N
+    Wk = -jnp.cumsum(div, axis=0)                     # k=1..N
     wrk = Wk[N - 1] / (z_w[N] - z_w[0])
     Wcorr = Wk - wrk * (z_w[1:] - z_w[0])
     # exact zero at the surface and the bottom

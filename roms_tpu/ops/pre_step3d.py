@@ -26,10 +26,7 @@ def pre_step3d(cfg: Config, grid: Grid, iic, t, t_prev, u, v,
                Hz, z_r, Huon, Hvom, W, Akt,
                sustr, svstr, bustr, bvstr, stflx, btflx,
                ru_prev, ru_prev2, rv_prev, rv_prev2,
-               srflx=None, ghats=None, swdk_w=None, sources=None,
-               momentum: bool = True):
-    """momentum=False skips the u/v start (returns None for them): the
-    fused Pallas rhs kernel (ops/rhs3d_pallas.py) computes it instead."""
+               srflx=None, ghats=None, swdk_w=None, sources=None):
     dt = cfg.dt
     pm, pn = grid.pm, grid.pn
     pmn = pm * pn
@@ -57,8 +54,6 @@ def pre_step3d(cfg: Config, grid: Grid, iic, t, t_prev, u, v,
     t_nnew = jnp.stack(tn_list, axis=0) if tn_list else t
 
     # ---------------- momentum: start u(nnew)/v(nnew) ----------------
-    if not momentum:
-        return t3, t_nnew, None, None
     a1, a2 = ab3_start_coefs(iic, dtype)
     u_nnew, v_nnew = momentum_init(
         cfg, pm, pn, a1, a2, u, v, Hz, ru_prev, ru_prev2, rv_prev,
@@ -84,13 +79,9 @@ def predictor_coefs(cfg: Config, iic, itrc: int, dtype):
 
 def tracer_predictor(cfg: Config, pmn, itrc: int, coefs, q, q_prev,
                      Hz, z_r, Huon, Hvom, W, Akt_l, ghats_i, srflx,
-                     swdk_w, stflx_i, btflx_i, sources=None,
-                     vadv_fn=None):
+                     swdk_w, stflx_i, btflx_i, sources=None):
     """One tracer's LF-AM3 predictor (the pre_step3d.F:336-598 tracer
-    loop body): returns (t3_i, t_nnew_i).  Shared by the XLA path and
-    the fused Pallas tracer kernel (ops/step3d_pallas.py); vadv_fn
-    overrides advection.vadv_flux (the kernel substitutes the
-    statically-unrolled SPLINES variant)."""
+    loop body): returns (t3_i, t_nnew_i)."""
     dt = cfg.dt
     lam = 1.0  # mod_scalars lambda
     hscheme = cfg.t_hadv[itrc]
@@ -111,7 +102,7 @@ def tracer_predictor(cfg: Config, pmn, itrc: int, coefs, q, q_prev,
         cff * pmn * ((ip1(FX) - FX) + (jp1(FE) - FE))
 
     # vertical advection + artificial continuity (pre_step3d.F:556-598)
-    FC = (vadv_fn or vadv_flux)(fv_scheme, q, W, Hz, "predictor")
+    FC = vadv_flux(fv_scheme, q, W, Hz, "predictor")
     DC = 1.0 / (Hz - cffv * pmn *
                 ((ip1(Huon) - Huon) + (jp1(Hvom) - Hvom) +
                  (W[1:] - W[:-1])))
@@ -151,8 +142,7 @@ def momentum_init(cfg: Config, pm, pn, a1, a2, u, v, Hz,
                   ru_prev, ru_prev2, rv_prev, rv_prev2,
                   sustr, svstr, bustr, bvstr):
     """Mass-weighted momentum start (pre_step3d.F:659-700): AB3 history
-    terms plus surface/bottom stress boundary fluxes.  Shared by the XLA
-    path and the fused Pallas rhs kernel (ops/rhs3d_pallas.py)."""
+    terms plus surface/bottom stress boundary fluxes."""
     dt = cfg.dt
     # with BODYFORCE the stresses enter through ru/rv in rhs3d, not as
     # predictor boundary fluxes (pre_step3d.F:931-1106 #ifndef blocks)

@@ -36,16 +36,11 @@ def _harm_clamped(a, b):
     return jnp.where(cff > _EPS, cff / safe, 0.0)
 
 
-def prsgrd32(cfg: Config, grid, rho, z_r, z_w, Hz, eq_tide=None,
-             rcumsum=None):
+def prsgrd32(cfg: Config, grid, rho, z_r, z_w, Hz, eq_tide=None):
     """Splines density-Jacobian pressure gradient (prsgrd32.h:119-285).
 
     eq_tide: equilibrium tidal elevation (TIDE_GENERATING_FORCES);
-    subtracted from the surface pressure (prsgrd32.h:271).
-
-    rcumsum(inc, top): pluggable downward-integral implementation (the
-    Pallas kernel substitutes a statically-unrolled accumulator because
-    jnp.cumsum serializes poorly under Mosaic); default _rcumsum."""
+    subtracted from the surface pressure (prsgrd32.h:271)."""
     g = C.g
     GRho = g / cfg.rho0
     HalfGRho = 0.5 * GRho
@@ -61,9 +56,6 @@ def prsgrd32(cfg: Config, grid, rho, z_r, z_w, Hz, eq_tide=None,
     dZm = 2.0 * dZ[1:] * dZ[:-1] / (dZ[1:] + dZ[:-1])
 
     # ---- kinematic pressure P/rho0 (prsgrd32.h:162-186) ----
-    # NB: positive scalar indices only - x[-1] lowers to a traced-index
-    # dynamic_slice, which the Mosaic (Pallas TPU) backend cannot lower
-    # when this runs inside the fused kernels.
     N = rho.shape[0]
     zwN = z_w[z_w.shape[0] - 1]
     cff2 = 0.5 * (rho[N - 1] - rho[N - 2]) * (zwN - z_r[N - 1]) / \
@@ -79,7 +71,7 @@ def prsgrd32(cfg: Config, grid, rho, z_r, z_w, Hz, eq_tide=None,
                     (dZm[1:] - dZm[:-1]) *
                     (rho[1:] - rho[:-1] - OneTwelfth * (dRm[1:] + dRm[:-1]))))
     # P[k] = P_top + sum_{m>=k} inc[m]
-    P = (rcumsum or _rcumsum)(inc, P_top)
+    P = _rcumsum(inc, P_top)
 
     # ---- XI-component (prsgrd32.h:188-238) ----
     dzu = z_r - im1(z_r)               # at u points

@@ -1,6 +1,6 @@
 """Sediment transport: suspended load, bed exchange, bed layers, bedload.
 
-TPU-native equivalent of ROMS/Nonlinear/Sediment/ (sediment.F driver,
+JAX equivalent of ROMS/Nonlinear/Sediment/ (sediment.F driver,
 sed_settling.F, sed_fluxes.F, sed_bed.F, sed_bedload.F).  Sediment
 classes ride as ordinary passive tracers (concentration kg/m3) through
 step3d_t; this module applies, in reference order:

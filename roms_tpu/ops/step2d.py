@@ -22,8 +22,8 @@ from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from ..pytree import dataclass as pytree_dataclass
 from .. import constants as C
 from ..config import Config
 from ..grid import Grid
@@ -31,7 +31,7 @@ from . import bc, obc, wetdry
 from .stencil import ip1, im1, jp1, jm1, at_u, at_v, at_p
 
 
-@struct.dataclass
+@pytree_dataclass
 class Fast2DState:
     """Carried state of the fast loop (all (Ny,Nx) padded arrays).
 

@@ -98,13 +98,10 @@ def step3d_t(cfg: Config, grid: Grid, iic, t_nnew, t3, Huon, Hvom, W,
 def tracer_corrector(cfg: Config, grid, pmn, itrc: int, tn_i, t3_i,
                      Huon, Hvom, W, Hz_new, z_r_new, oHz, Akt_l,
                      t_old_i=None, bry=None, clm=None, sources=None,
-                     want_diags=False, spline_fn=None, thomas_fn=None,
-                     vadv_fn=None):
+                     want_diags=False):
     """One tracer's corrector (the step3d_t.F:227-1142 non-MPDATA loop
     body): horizontal + vertical advection of t3, implicit vertical
-    diffusion, climatology nudging, lateral BCs.  Shared by the XLA path
-    and the fused Pallas tracer kernel (ops/step3d_pallas.py), which
-    substitutes the statically-unrolled vertical solvers."""
+    diffusion, climatology nudging, lateral BCs."""
     dt = cfg.dt
     hscheme = cfg.t_hadv[itrc]
     vscheme = cfg.t_vadv[itrc]
@@ -116,18 +113,17 @@ def tracer_corrector(cfg: Config, grid, pmn, itrc: int, tn_i, t3_i,
                                            Huon, Hvom)
     tn = tn_i - dt * pmn * ((ip1(FX) - FX) + (jp1(FE) - FE))
 
-    FC = (vadv_fn or vadv_flux)(vscheme, t3_i, W, Hz_new, "corrector",
-                                z_r=z_r_new, pmn=pmn, dt=dt)
+    FC = vadv_flux(vscheme, t3_i, W, Hz_new, "corrector",
+                   z_r=z_r_new, pmn=pmn, dt=dt)
     tn = (tn - dt * pmn * (FC[1:] - FC[:-1])) * oHz
 
     pre_vd = tn
     if cfg.splines_vdiff:
-        flux = (spline_fn or spline_vdiff_flux)(dt, Hz_new, oHz, Akt_l,
-                                                tn)
+        flux = spline_vdiff_flux(dt, Hz_new, oHz, Akt_l, tn)
         tn = tn + dt * oHz * (flux[1:] - flux[:-1])
     else:
-        tn = (thomas_fn or thomas_implicit)(dt, 1.0, Hz_new, z_r_new,
-                                            Akt_l, tn * Hz_new)
+        tn = thomas_implicit(dt, 1.0, Hz_new, z_r_new, Akt_l,
+                             tn * Hz_new)
     dparts = None
     if want_diags:
         dparts = {"xadv": -dt * pmn * oHz * (ip1(FX) - FX),

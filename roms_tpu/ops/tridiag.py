@@ -2,8 +2,8 @@
 
 The vertical dimension (k, leading axis, N ~ 16-30) is never decomposed
 (SURVEY.md §2.2), so these are per-column Thomas solves carried by
-lax.scan over k with full (Ny, Nx) planes as the vectorized state - the
-TPU-friendly layout (planes map to 8x128 VPU tiles).
+lax.scan over k with full (Ny, Nx) planes as the vectorized state, so
+every step of the recurrence is one elementwise pass over a plane.
 
 Three solvers, matching the reference numerics exactly:
  * spline_vdiff_flux   - conservative parabolic-spline reconstruction of the
@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 
+@jax.named_scope("vsolve")
 def spline_vdiff_flux(dt: float, Hz, oHz, AK, q):
     """Solve the spline system for interface derivatives of q and return the
     interface flux AK * dq/dz_spline.
@@ -69,6 +70,7 @@ def spline_vdiff_flux(dt: float, Hz, oHz, AK, q):
     return jnp.concatenate([zero[None], flux, zero[None]], axis=0)
 
 
+@jax.named_scope("vsolve")
 def spline_interp_flux(Hz, q, W, c_bot: float, cf1: float,
                        c_top: float, d_top: float):
     """Parabolic-spline interface interpolation of q, multiplied by W.
@@ -112,85 +114,7 @@ def spline_interp_flux(Hz, q, W, c_bot: float, cf1: float,
     return jnp.concatenate([zero[None], flux, zero[None]], axis=0)
 
 
-def spline_vdiff_flux_unrolled(dt: float, Hz, oHz, AK, q):
-    """spline_vdiff_flux with the k-recurrences statically unrolled
-    (Python loops over the ~30 levels) for use inside Pallas kernels:
-    Mosaic cannot lower lax.scan's per-iteration xs slicing (traced-index
-    dynamic_slice).  Numerically identical up to reassociation."""
-    sixth = 1.0 / 6.0
-    third = 1.0 / 3.0
-    N = q.shape[0]
-    zero = jnp.zeros_like(q[0])
-    CFs, DCs = [], []
-    CFp, DCp = zero, zero
-    for k in range(N - 1):
-        fc = sixth * Hz[k] - dt * AK[k] * oHz[k]
-        cf = sixth * Hz[k + 1] - dt * AK[k + 2] * oHz[k + 1]
-        bck = third * (Hz[k] + Hz[k + 1]) + \
-            dt * AK[k + 1] * (oHz[k] + oHz[k + 1])
-        cff = 1.0 / (bck - fc * CFp)
-        CFp = cff * cf
-        DCp = cff * ((q[k + 1] - q[k]) - fc * DCp)
-        CFs.append(CFp)
-        DCs.append(DCp)
-    flux = [None] * (N - 1)
-    Dnext = zero
-    for k in range(N - 2, -1, -1):
-        Dnext = DCs[k] - CFs[k] * Dnext
-        flux[k] = AK[k + 1] * Dnext
-    return jnp.stack([zero] + flux + [zero], axis=0)
-
-
-def spline_interp_flux_unrolled(Hz, q, W, c_bot: float, cf1: float,
-                                c_top: float, d_top: float):
-    """spline_interp_flux statically unrolled (see
-    spline_vdiff_flux_unrolled for why)."""
-    N = q.shape[0]
-    CFk = jnp.full_like(q[0], cf1)
-    FCp = c_bot * q[0]
-    CFs, FCs = [], []
-    for k in range(N - 1):
-        cff = 1.0 / (2.0 * Hz[k] + Hz[k + 1] * (2.0 - CFk))
-        FCk = cff * (3.0 * (Hz[k] * q[k + 1] + Hz[k + 1] * q[k]) -
-                     Hz[k + 1] * FCp)
-        CFk = cff * Hz[k]
-        FCp = FCk
-        CFs.append(CFk)
-        FCs.append(FCk)
-    FCnext = (c_top * q[N - 1] - FCp) / (d_top - CFk)
-    flux = [None] * (N - 1)
-    for k in range(N - 2, -1, -1):
-        FCnext = FCs[k] - CFs[k] * FCnext
-        flux[k] = W[k + 1] * FCnext
-    zero = jnp.zeros_like(q[0])
-    return jnp.stack([zero] + flux + [zero], axis=0)
-
-
-def thomas_implicit_unrolled(dt: float, lam: float, Hz, z_r, AK,
-                             rhs_mass):
-    """thomas_implicit statically unrolled (see
-    spline_vdiff_flux_unrolled for why)."""
-    N = rhs_mass.shape[0]
-    zero = jnp.zeros_like(rhs_mass[0])
-    FC = [zero] + [-dt * lam * AK[k] / (z_r[k] - z_r[k - 1])
-                   for k in range(1, N)] + [zero]
-    CFs, DCs = [], []
-    CFp, DCp = zero, zero
-    for k in range(N):
-        bck = Hz[k] - FC[k + 1] - FC[k]
-        cff = 1.0 / (bck - FC[k] * CFp)
-        CFp = cff * FC[k + 1]
-        DCp = cff * (rhs_mass[k] - FC[k] * DCp)
-        CFs.append(CFp)
-        DCs.append(DCp)
-    qs = [None] * N
-    qnext = zero
-    for k in range(N - 1, -1, -1):
-        qnext = DCs[k] - CFs[k] * qnext
-        qs[k] = qnext
-    return jnp.stack(qs, axis=0)
-
-
+@jax.named_scope("vsolve")
 def thomas_implicit(dt: float, lam: float, Hz, z_r, AK, rhs_mass):
     """Standard implicit vertical diffusion solve (step3d_t.F:1092-1142):
 

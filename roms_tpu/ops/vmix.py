@@ -52,10 +52,9 @@ lmd_zetas = -1.0
 lmd_Cg = lmd_Cstar * vonKar * (lmd_cs * vonKar * lmd_epsilon) ** (1.0 / 3.0)
 
 # Paulson & Simpson (1977) Jerlov water types (mod_scalars.F:1502-1514)
-lmd_mu1 = jnp.array([0.35, 0.6, 1.0, 1.5, 1.4, 0.42, 0.37, 0.33,
-                     0.00468592])
-lmd_mu2 = jnp.array([23.0, 20.0, 17.0, 14.0, 7.9, 5.13, 3.54, 2.34, 1.51])
-lmd_r1 = jnp.array([0.58, 0.62, 0.67, 0.77, 0.78, 0.57, 0.57, 0.57, 0.55])
+lmd_mu1 = (0.35, 0.6, 1.0, 1.5, 1.4, 0.42, 0.37, 0.33, 0.00468592)
+lmd_mu2 = (23.0, 20.0, 17.0, 14.0, 7.9, 5.13, 3.54, 2.34, 1.51)
+lmd_r1 = (0.58, 0.62, 0.67, 0.77, 0.78, 0.57, 0.57, 0.57, 0.55)
 
 
 def swfrac(Z, zscale: float = -1.0, jwtype: int = 1):
@@ -121,7 +120,7 @@ def _wscale(Ustar, zeta_hat):
     Ustar3 = Ustar * Ustar * Ustar
     zetapar = zeta_hat / (Ustar3 + small)
     wm_st = vonKar * Ustar / (1.0 + 5.0 * zetapar)
-    # pow() is transcendental-heavy on the VPU; use sqrt/cbrt chains
+    # sqrt/cbrt chains in place of pow()
     s16 = jnp.sqrt(jnp.maximum(1.0 - 16.0 * zetapar, 0.0))
     wm_un = jnp.where(
         zetapar > lmd_zetam,

@@ -3,7 +3,7 @@
 The reference's mp_exchange2d/3d/4d (ROMS/Utility/mp_exchange.F:290-3429)
 packs Nghost-wide edge strips, swaps them with the four lattice neighbors
 in two phases (W-E first, then S-N including the just-filled corners), and
-fuses up to 4 fields per call.  This module is the TPU-native equivalent
+fuses up to 4 fields per call.  This module is the JAX equivalent
 for shard_map code: neighbor collective-permutes over the mesh axes, same
 two-phase corner handling, multi-field fusion by stacking.
 

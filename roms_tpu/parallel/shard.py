@@ -5,8 +5,8 @@ with 2-3 point halos exchanged via mp_exchange (SURVEY.md §2.2).  Here the
 same decomposition is expressed as a `jax.sharding.Mesh(('eta','xi'))` with
 NamedSharding over the last two axes of every field; XLA's SPMD partitioner
 turns the roll/slice stencils and halo fills into neighbor collective
-permutes over ICI automatically - the halo exchange is derived from the
-data dependencies rather than hand-rolled.
+permutes automatically - the halo exchange is derived from the data
+dependencies rather than hand-rolled.
 
 (An explicit shard_map + ppermute halo path with widened halos for the fast
 barotropic loop is the planned performance upgrade; this module is the
@@ -25,7 +25,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def make_mesh(devices: Optional[Sequence] = None,
               shape: Optional[tuple] = None) -> Mesh:
     """2-D mesh ('eta','xi').  Default shape: as square as possible with
-    xi (the long/contiguous-lane axis) getting the larger factor."""
+    xi (the long, contiguous axis) getting the larger factor."""
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)
     if shape is None:

@@ -1,6 +1,6 @@
 """shard_map domain decomposition with explicit ppermute halo exchange.
 
-The TPU-native analog of the reference's MPI tiling (one tile per rank,
+The JAX analog of the reference's MPI tiling (one tile per rank,
 NtileI x NtileJ, mp_exchange halo swaps; SURVEY.md §2.2/§5.7): the global
 domain is split into per-device blocks that carry their own `halo`-wide
 ghost ring, the physics runs verbatim on each local block (ops/* under a
@@ -28,7 +28,6 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..config import Config
 from ..ops import bc
@@ -65,13 +64,20 @@ def block(cfg: Config, mesh: Mesh, tree):
     """Global padded pytree -> blocked pytree with (py, px) leading axes
     on horizontal-field leaves.  Each block is the contiguous slice of
     the global padded array covering its interior plus the halo ring, so
-    blocks start out bit-identical to the global values."""
+    blocks start out bit-identical to the global values.  Each block is
+    placed on its own mesh device; every other array is replicated over
+    the mesh, as the stepper returns it, so that the stepper's second
+    call finds the program its first call compiled."""
     py, px = mesh.shape["eta"], mesh.shape["xi"]
     H = cfg.halo
     l, m = cfg.Lm // px, cfg.Mm // py
+    on_mesh = NamedSharding(mesh, P("eta", "xi"))
+    replicated = NamedSharding(mesh, P())
 
     def blk(a):
         if not _is_field(cfg, a):
+            if isinstance(a, (jax.Array, np.ndarray)):
+                return jax.device_put(a, replicated)
             return a
         rows = []
         for r in range(py):
@@ -80,7 +86,7 @@ def block(cfg: Config, mesh: Mesh, tree):
                 cols.append(a[..., r * m:r * m + m + 2 * H,
                               c * l:c * l + l + 2 * H])
             rows.append(jnp.stack(cols, axis=0))
-        return jnp.stack(rows, axis=0)
+        return jax.device_put(jnp.stack(rows, axis=0), on_mesh)
 
     return jax.tree_util.tree_map(blk, tree)
 
@@ -188,13 +194,15 @@ def make_smap_stepper(cfg: Config, grid, mesh: Mesh,
             bc.pop_ctx()
         return out
 
-    def stepper(state_b):
+    def stepper(grid_blk, state_b):
         state_specs = _blocked_specs(cfg_l, state_b)
-        out_specs = state_specs
-        fn = shard_map(
-            lambda g, s: local_step(g, s), mesh=mesh,
-            in_specs=(grid_specs, state_specs), out_specs=out_specs,
-            check_rep=False)
-        return fn(grid_b, state_b)
+        fn = jax.shard_map(
+            local_step, mesh=mesh,
+            in_specs=(grid_specs, state_specs), out_specs=state_specs,
+            check_vma=False)
+        return fn(grid_blk, state_b)
 
-    return jax.jit(stepper)
+    # the blocked grid is a jit argument, not a constant baked into the
+    # compiled program
+    stepper_jit = jax.jit(stepper)
+    return lambda state_b: stepper_jit(grid_b, state_b)

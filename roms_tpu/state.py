@@ -10,12 +10,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from .pytree import dataclass as pytree_dataclass
 from .config import Config
 
 
-@struct.dataclass
+@pytree_dataclass
 class State:
     time: jax.Array      # seconds since initialization
     iic: jax.Array       # slow step counter (0-based)

@@ -57,7 +57,8 @@ def step(cfg: Config, grid: Grid, state: State,
 
     # --- forcing (main3d.F:207-222) ---
     if forcing_fn is not None:
-        frc = forcing_fn(cfg, grid, state.time)
+        with jax.named_scope("forcing"):
+            frc = forcing_fn(cfg, grid, state.time)
     else:
         frc = {}
     nt = max(cfg.ntracers, 1)
@@ -65,12 +66,13 @@ def step(cfg: Config, grid: Grid, state: State,
         # COARE air-sea fluxes from atmospheric state + SST (main3d.F:386)
         from .ops import bulk_flux as bfx
         srflx0 = frc.get("srflx", zero2)
-        blk = bfx.bulk_flux(
-            cfg, grid, state.t[0, -1], srflx0,
-            frc.get("Uwind", zero2), frc.get("Vwind", zero2),
-            frc.get("Tair", zero2), frc.get("Pair", zero2 + 1013.0),
-            frc.get("Hair", zero2), frc.get("cloud", zero2),
-            frc.get("rain", zero2))
+        with jax.named_scope("bulk_flux"):
+            blk = bfx.bulk_flux(
+                cfg, grid, state.t[0, -1], srflx0,
+                frc.get("Uwind", zero2), frc.get("Vwind", zero2),
+                frc.get("Tair", zero2), frc.get("Pair", zero2 + 1013.0),
+                frc.get("Hair", zero2), frc.get("cloud", zero2),
+                frc.get("rain", zero2))
         sustr = blk["sustr"]
         svstr = blk["svstr"]
         stflux = jnp.concatenate(
@@ -127,23 +129,7 @@ def step(cfg: Config, grid: Grid, state: State,
         grid = grid.replace(h=grid.h - dh_bed)
 
     # --- vertical grid and mass fluxes at time n (main3d.F:307) ---
-    from .ops import diag_pallas
-    ns_active = cfg.nearshore in ("mellor05", "mellor08") and \
-        "Hwave" in frc
-    diag_fused = (diag_pallas.use_pallas(cfg) and grid.zice is None
-                  and not ns_active)
-    bvf = None
-    if diag_fused:
-        z_r, z_w, Hz, Huon, Hvom, W = diag_pallas.grid_flux_fused(
-            cfg, grid, state.zeta, state.u, state.v, hc)
-        want_bvf = cfg.vmix in ("kpp", "bvf")
-        res_eos = diag_pallas.eos_fused(cfg, state.t, z_r, z_w,
-                                        want_bvf)
-        if want_bvf:
-            rho, pden, bvf = res_eos
-        else:
-            rho, pden = res_eos
-    else:
+    with jax.named_scope("diag"):
         z_r, z_w, Hz = vgrid.set_depth(grid.h, state.zeta, hc,
                                        grid.sc_r, grid.Cs_r, grid.sc_w,
                                        grid.Cs_w, cfg.vtransform,
@@ -156,7 +142,7 @@ def step(cfg: Config, grid: Grid, state: State,
     # --- wave radiation stresses + Stokes drift (main3d's
     #     radiation_stress call; ops/nearshore.py Mellor05) ---
     ns = None
-    if ns_active:
+    if cfg.nearshore in ("mellor05", "mellor08") and "Hwave" in frc:
         if cfg.nearshore == "mellor08":
             from .ops.nearshore import radiation_stress08
             ns = radiation_stress08(
@@ -177,9 +163,10 @@ def step(cfg: Config, grid: Grid, state: State,
             grid.om_v
 
     # --- surface/bottom fluxes (main3d.F:386-396) ---
-    bustr, bvstr, stflx, btflx = set_vbc(cfg, grid, state.u, state.v,
-                                         state.t, stflux, btflux,
-                                         z_r=z_r, z_w=z_w)
+    with jax.named_scope("set_vbc"):
+        bustr, bvstr, stflx, btflx = set_vbc(cfg, grid, state.u, state.v,
+                                             state.t, stflux, btflux,
+                                             z_r=z_r, z_w=z_w)
     srflx = frc.get("srflx", None)
 
     # --- wave-current bottom boundary layer (main3d.F:389 bblm):
@@ -223,17 +210,18 @@ def step(cfg: Config, grid: Grid, state: State,
     ghats = None
     swdk_w = None
     if cfg.vmix == "kpp":
-        if bvf is None:
+        with jax.named_scope("diag"):
             bvf = eos.brunt_vaisala(cfg, state.t, z_r, z_w)
         srf = srflx if srflx is not None else zero2
-        Akv, Akt, hsbl, hbbl, ghats = vmix.lmd_vmix(
-            cfg, grid, state.u, state.v, state.t, rho, pden, bvf,
-            Hz, z_r, z_w, sustr, svstr, bustr, bvstr, stflx, srf, hsbl,
-            btflx=btflx, hbbl_prev=hbbl)
-        if srflx is not None:
-            swdk_w = vmix.swfrac(z_w[-1][None] - z_w)
+        with jax.named_scope("kpp"):
+            Akv, Akt, hsbl, hbbl, ghats = vmix.lmd_vmix(
+                cfg, grid, state.u, state.v, state.t, rho, pden, bvf,
+                Hz, z_r, z_w, sustr, svstr, bustr, bvstr, stflx, srf,
+                hsbl, btflx=btflx, hbbl_prev=hbbl)
+            if srflx is not None:
+                swdk_w = vmix.swfrac(z_w[-1][None] - z_w)
     elif cfg.vmix == "bvf":
-        if bvf is None:
+        with jax.named_scope("diag"):
             bvf = eos.brunt_vaisala(cfg, state.t, z_r, z_w)
         Akv, Akt = vmix.bvf_mix(cfg, bvf)
     else:
@@ -241,43 +229,23 @@ def step(cfg: Config, grid: Grid, state: State,
         # them after the momentum corrector (main3d.F:791)
         Akv, Akt = state.Akv, state.Akt
 
-    # --- omega at time n (main3d.F:474; computed inside the fused
-    #     diag kernel when active - identical, ns excluded there) ---
-    if not diag_fused:
+    # --- omega at time n (main3d.F:474) ---
+    with jax.named_scope("diag"):
         W = omega(cfg, grid, Huon, Hvom, z_w)
 
     # --- rhs3d phase (main3d.F:563): pre_step3d, prsgrd, t3dmix, rhs,
     #     uv3dmix ---
-    from .ops import rhs3d_pallas, step3d_pallas
     clm = frc.get("clm", None)
     bry = frc.get("bry", None)
     sources = frc.get("sources", None)
-    rhs_fused = rhs3d_pallas.use_pallas(cfg, clm=clm,
-                                        want_diags=collect_diags)
-    tr_fused = step3d_pallas.use_tracer_pallas(
-        cfg, bry=bry, clm=clm, sources=sources,
-        want_diags=collect_diags)
-    if tr_fused:
-        t3, t_nnew = step3d_pallas.tracer_predictor_fused(
-            cfg, grid, state.iic, state.t, state.t_prev, Hz, Huon,
-            Hvom, W, Akt, ghats=ghats, srflx=srflx, swdk_w=swdk_w,
-            stflx=stflx, btflx=btflx, z_r=z_r)
-        u_nnew = v_nnew = None
-        if not rhs_fused:
-            from .ops.pre_step3d import ab3_start_coefs, momentum_init
-            a1, a2 = ab3_start_coefs(state.iic, dtype)
-            u_nnew, v_nnew = momentum_init(
-                cfg, grid.pm, grid.pn, a1, a2, state.u, state.v, Hz,
-                state.ru_prev, state.ru_prev2, state.rv_prev,
-                state.rv_prev2, sustr, svstr, bustr, bvstr)
-    else:
+    with jax.named_scope("pre_step3d"):
         t3, t_nnew, u_nnew, v_nnew = pre_step3d(
             cfg, grid, state.iic, state.t, state.t_prev, state.u,
             state.v, Hz, z_r, Huon, Hvom, W, Akt,
             sustr, svstr, bustr, bvstr, stflx, btflx,
             state.ru_prev, state.ru_prev2, state.rv_prev,
             state.rv_prev2, srflx=srflx, ghats=ghats, swdk_w=swdk_w,
-            sources=sources, momentum=not rhs_fused)
+            sources=sources)
 
     eq_tide = None
     if cfg.tide_gen_forces:
@@ -295,62 +263,42 @@ def step(cfg: Config, grid: Grid, state: State,
         # leaves only an O(drho'/draft) residual.
         ice_load = -jnp.abs(grid.zice) * (1.0 + rho[-1] / cfg.rho0)
         eq_tide = ice_load if eq_tide is None else eq_tide + ice_load
-    if rhs_fused:
-        # fused momentum phase: pre_step3d momentum start + prsgrd32 +
-        # rhs3d + uv3dmix2 in one VMEM kernel (ops/rhs3d_pallas.py)
-        u_nnew, v_nnew, ru, rv, rufrc, rvfrc = \
-            rhs3d_pallas.momentum_rhs_fused(
-                cfg, grid, state.iic, state.u, state.v, Hz, z_r, z_w,
-                rho, Huon, Hvom, W, state.ru_prev, state.ru_prev2,
-                state.rv_prev, state.rv_prev2, sustr, svstr, bustr,
-                bvstr, eq_tide=eq_tide)
-    else:
-        from .ops import prsgrd_pallas
-        if prsgrd_pallas.use_pallas(cfg):
-            ru, rv = prsgrd_pallas.prsgrd32_fused(cfg, grid, rho, z_r,
-                                                  z_w, Hz,
-                                                  eq_tide=eq_tide)
-        else:
-            ru, rv = prsgrd.prsgrd(cfg, grid, rho, z_r, z_w, Hz,
-                                   eq_tide=eq_tide)
+    with jax.named_scope("prsgrd"):
+        ru, rv = prsgrd.prsgrd(cfg, grid, rho, z_r, z_w, Hz,
+                               eq_tide=eq_tide)
 
     t_nnew_premix = t_nnew if collect_diags else None
-    mix_folded = tr_fused and step3d_pallas.mix_in_predictor(cfg)
-    if any(x != 0.0 for x in cfg.tnu2) and not mix_folded:
-        if cfg.ts_mix_iso:
-            t_nnew = t3dmix2_iso(cfg, grid, state.t, pden, Hz, z_r,
-                                 t_nnew, cfg.dt)
-        elif cfg.ts_mix_geo:
-            from .ops import mix3d_pallas
-            if mix3d_pallas.use_pallas(cfg):
-                t_nnew = mix3d_pallas.t3dmix2_geo_fused(
-                    cfg, grid, state.t, Hz, z_r, t_nnew, cfg.dt)
-            else:
+    with jax.named_scope("t3dmix"):
+        if any(x != 0.0 for x in cfg.tnu2):
+            if cfg.ts_mix_iso:
+                t_nnew = t3dmix2_iso(cfg, grid, state.t, pden, Hz, z_r,
+                                     t_nnew, cfg.dt)
+            elif cfg.ts_mix_geo:
                 t_nnew = t3dmix2_geo(cfg, grid, state.t, Hz, z_r,
                                      t_nnew, cfg.dt)
-        else:
-            t_nnew = t3dmix2(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
-    if cfg.ts_dif4 and any(x != 0.0 for x in cfg.tnu4):
-        if cfg.ts_mix_iso:
-            t_nnew = t3dmix4_iso(cfg, grid, state.t, pden, Hz, z_r,
-                                 t_nnew, cfg.dt)
-        elif cfg.ts_mix_geo:
-            t_nnew = t3dmix4_geo(cfg, grid, state.t, Hz, z_r, t_nnew,
-                                 cfg.dt)
-        else:
-            t_nnew = t3dmix4(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
+            else:
+                t_nnew = t3dmix2(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
+        if cfg.ts_dif4 and any(x != 0.0 for x in cfg.tnu4):
+            if cfg.ts_mix_iso:
+                t_nnew = t3dmix4_iso(cfg, grid, state.t, pden, Hz, z_r,
+                                     t_nnew, cfg.dt)
+            elif cfg.ts_mix_geo:
+                t_nnew = t3dmix4_geo(cfg, grid, state.t, Hz, z_r, t_nnew,
+                                     cfg.dt)
+            else:
+                t_nnew = t3dmix4(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
 
     ru_prs, rv_prs = (ru, rv) if collect_diags else (None, None)
     uv_nnew_pre = (u_nnew, v_nnew) if collect_diags else None
-    if not rhs_fused:
+    with jax.named_scope("rhs3d"):
         res3d = rhs3d_momentum(
             cfg, grid, state.u, state.v, Huon, Hvom, W, Hz, ru, rv,
             sustr, svstr, bustr, bvstr, clm=clm,
             want_diags=collect_diags)
-        if collect_diags:
-            ru, rv, rufrc, rvfrc, dia_rhs = res3d
-        else:
-            ru, rv, rufrc, rvfrc = res3d
+    if collect_diags:
+        ru, rv, rufrc, rvfrc, dia_rhs = res3d
+    else:
+        ru, rv, rufrc, rvfrc = res3d
 
     # --- wave radiation-stress body force (main3d's radiation_stress
     #     call; ops/nearshore.py Mellor05).  Applied to ru/rv like the
@@ -362,39 +310,36 @@ def step(cfg: Config, grid: Grid, state: State,
         rufrc = rufrc - ns.rustr2d
         rvfrc = rvfrc - ns.rvstr2d
 
-    if cfg.uv_vis2 and cfg.visc2 != 0.0 and not rhs_fused:
-        if cfg.uv_mix_geo:
-            u_nnew, v_nnew, rufrc, rvfrc = uv3dmix2_geo(
-                cfg, grid, state.u, state.v, Hz, z_r, u_nnew, v_nnew,
-                rufrc, rvfrc, cfg.dt)
-        else:
-            from .ops import mix3d_pallas
-            if mix3d_pallas.use_pallas(cfg):
-                u_nnew, v_nnew, rufrc, rvfrc = mix3d_pallas.uv3dmix2_fused(
-                    cfg, grid, state.u, state.v, Hz, u_nnew, v_nnew,
+    with jax.named_scope("uv3dmix"):
+        if cfg.uv_vis2 and cfg.visc2 != 0.0:
+            if cfg.uv_mix_geo:
+                u_nnew, v_nnew, rufrc, rvfrc = uv3dmix2_geo(
+                    cfg, grid, state.u, state.v, Hz, z_r, u_nnew, v_nnew,
                     rufrc, rvfrc, cfg.dt)
             else:
                 u_nnew, v_nnew, rufrc, rvfrc = uv3dmix2(
                     cfg, grid, state.u, state.v, Hz, u_nnew, v_nnew,
                     rufrc, rvfrc, cfg.dt)
-    if cfg.uv_vis4 and cfg.visc4 != 0.0:
-        if cfg.uv_mix_geo:
-            u_nnew, v_nnew, rufrc, rvfrc = uv3dmix4_geo(
-                cfg, grid, state.u, state.v, Hz, z_r, u_nnew, v_nnew,
-                rufrc, rvfrc, cfg.dt)
-        else:
-            u_nnew, v_nnew, rufrc, rvfrc = uv3dmix4(
-                cfg, grid, state.u, state.v, Hz, u_nnew, v_nnew,
-                rufrc, rvfrc, cfg.dt)
+        if cfg.uv_vis4 and cfg.visc4 != 0.0:
+            if cfg.uv_mix_geo:
+                u_nnew, v_nnew, rufrc, rvfrc = uv3dmix4_geo(
+                    cfg, grid, state.u, state.v, Hz, z_r, u_nnew, v_nnew,
+                    rufrc, rvfrc, cfg.dt)
+            else:
+                u_nnew, v_nnew, rufrc, rvfrc = uv3dmix4(
+                    cfg, grid, state.u, state.v, Hz, u_nnew, v_nnew,
+                    rufrc, rvfrc, cfg.dt)
 
     # --- GLS predictor (main3d.F:565-567) ---
     tke_new, gls_new = state.tke, state.gls
     Akk_new, Akp_new, Lscale_new = state.Akk, state.Akp, state.Lscale
     if cfg.vmix in ("gls", "my25"):
         from .ops import gls as gls_mod
-        tke3, gls3, tke_nnew, gls_nnew = gls_mod.gls_prestep(
-            cfg, grid, cfg.gls_params, state.iic, state.tke, state.gls,
-            state.tke_prev, state.gls_prev, Hz, Huon, Hvom, W)
+        with jax.named_scope("gls"):
+            tke3, gls3, tke_nnew, gls_nnew = gls_mod.gls_prestep(
+                cfg, grid, cfg.gls_params, state.iic, state.tke,
+                state.gls, state.tke_prev, state.gls_prev, Hz, Huon,
+                Hvom, W)
 
     # --- fast barotropic loop (main3d.F:592-713) ---
     fs = Fast2DState(
@@ -406,19 +351,13 @@ def step(cfg: Config, grid: Grid, state: State,
         rvbar_n=state.rvbar, rvbar_nm1=zero2,
         Zt_avg1=zero2, DU_avg1=zero2, DV_avg1=zero2,
         DU_avg2=zero2, DV_avg2=zero2)
-    from .ops import step2d_pallas
-    if step2d_pallas.use_pallas(cfg, bry, sources, clm):
-        fs, rufrc_c, rvfrc_c, wet = step2d_pallas.fast_loop_fused(
-            cfg, grid, fs, rufrc, rvfrc,
-            state.rufrc0_prev, state.rufrc0_prev2,
-            state.rvfrc0_prev, state.rvfrc0_prev2, state.iic)
+    if ns is not None:
+        from .ops.step2d import stokes_transport
+        us2d = stokes_transport(grid, state.zeta,
+                                (ns.ubar_stokes, ns.vbar_stokes))
     else:
-        if ns is not None:
-            from .ops.step2d import stokes_transport
-            us2d = stokes_transport(grid, state.zeta,
-                                    (ns.ubar_stokes, ns.vbar_stokes))
-        else:
-            us2d = None
+        us2d = None
+    with jax.named_scope("fast_loop"):
         fs, rufrc_c, rvfrc_c, wet = fast_loop(
             cfg, grid, fs, rufrc=rufrc, rvfrc=rvfrc,
             ru0_nm1=state.rufrc0_prev, ru0_nm2=state.rufrc0_prev2,
@@ -427,10 +366,11 @@ def step(cfg: Config, grid: Grid, state: State,
             us2d=us2d)
 
     # --- new depths from the filtered free surface (main3d.F:736) ---
-    z_r2, z_w2, Hz2 = vgrid.set_depth(grid.h, fs.Zt_avg1, hc, grid.sc_r,
-                                      grid.Cs_r, grid.sc_w, grid.Cs_w,
-                                      cfg.vtransform,
-                                      zice=grid.zice)
+    with jax.named_scope("diag"):
+        z_r2, z_w2, Hz2 = vgrid.set_depth(grid.h, fs.Zt_avg1, hc,
+                                          grid.sc_r, grid.Cs_r, grid.sc_w,
+                                          grid.Cs_w, cfg.vtransform,
+                                          zice=grid.zice)
 
     # --- 3D momentum corrector (main3d.F:762).  With NEARSHORE the
     #     time-centered consistency target DU_avg2 is total (Eulerian +
@@ -440,13 +380,7 @@ def step(cfg: Config, grid: Grid, state: State,
     if ns is not None:
         DU2_t = DU2_t - us2d[0]
         DV2_t = DV2_t - us2d[1]
-    if step3d_pallas.use_uv_pallas(cfg, bry=bry, sources=sources,
-                                   wet=wet):
-        u2, v2, ubar2, vbar2, Huon2, Hvom2 = \
-            step3d_pallas.uv_corrector_fused(
-                cfg, grid, state.iic, u_nnew, v_nnew, ru, rv, Hz2,
-                Akv, fs.DU_avg1, fs.DV_avg1, DU2_t, DV2_t, Huon, Hvom)
-    else:
+    with jax.named_scope("step3d_uv"):
         u2, v2, ubar2, vbar2, Huon2, Hvom2 = step3d_uv(
             cfg, grid, state.iic, u_nnew, v_nnew, ru, rv, Hz2, Akv,
             fs.DU_avg1, fs.DV_avg1, DU2_t, DV2_t, Huon, Hvom,
@@ -506,9 +440,7 @@ def step(cfg: Config, grid: Grid, state: State,
             ("prestep", "hvisc", "prsgrd", "cor", "xadv", "yadv", "vadv"))
 
     # --- omega with corrected fluxes (main3d.F:789) ---
-    if diag_pallas.use_pallas(cfg):
-        W2 = diag_pallas.omega_fused(cfg, grid, Huon2, Hvom2, z_w2)
-    else:
+    with jax.named_scope("diag"):
         W2 = omega(cfg, grid, Huon2, Hvom2, z_w2)
 
     # --- GLS corrector (main3d.F:791-793): updates Akv/Akt for the
@@ -517,40 +449,40 @@ def step(cfg: Config, grid: Grid, state: State,
         # dedicated Mellor-Yamada 2.5 corrector (my25_corstep.F); the
         # predictor is shared with GLS (my25_prestep.F == gls_prestep.F)
         from .ops.my25 import my25_corstep
-        bvf_g = eos.brunt_vaisala(cfg, state.t, z_r, z_w)
-        (tke_new, gls_new, Akv, Akt, Akk_new,
-         Lscale_new) = my25_corstep(
-            cfg, grid, state.iic,
-            state.tke, state.gls, tke3, gls3, tke_nnew, gls_nnew,
-            state.u, state.v, bvf_g, Hz2, z_r2, z_w2, Huon2, Hvom2, W2,
-            state.Akv, state.Akt, state.Akk, state.Lscale,
-            sustr, svstr, bustr, bvstr,
-            kantha_clayson=cfg.my25_kantha_clayson)
+        with jax.named_scope("gls"):
+            bvf_g = eos.brunt_vaisala(cfg, state.t, z_r, z_w)
+            (tke_new, gls_new, Akv, Akt, Akk_new,
+             Lscale_new) = my25_corstep(
+                cfg, grid, state.iic,
+                state.tke, state.gls, tke3, gls3, tke_nnew, gls_nnew,
+                state.u, state.v, bvf_g, Hz2, z_r2, z_w2, Huon2, Hvom2,
+                W2, state.Akv, state.Akt, state.Akk, state.Lscale,
+                sustr, svstr, bustr, bvstr,
+                kantha_clayson=cfg.my25_kantha_clayson)
         Akp_new = Akk_new
     elif cfg.vmix == "gls":
-        bvf_g = eos.brunt_vaisala(cfg, state.t, z_r, z_w)
-        (tke_new, gls_new, Akv, Akt, Akk_new, Akp_new,
-         Lscale_new) = gls_mod.gls_corstep(
-            cfg, grid, cfg.gls_params, state.iic,
-            state.tke, state.gls, tke3, gls3, tke_nnew, gls_nnew,
-            state.u, state.v, bvf_g, Hz2, z_r2, z_w2, Huon2, Hvom2, W2,
-            state.Akv, state.Akt, state.Akk, state.Akp, state.Lscale,
-            sustr, svstr, bustr, bvstr, Hwave=frc.get("Hwave"))
+        with jax.named_scope("gls"):
+            bvf_g = eos.brunt_vaisala(cfg, state.t, z_r, z_w)
+            (tke_new, gls_new, Akv, Akt, Akk_new, Akp_new,
+             Lscale_new) = gls_mod.gls_corstep(
+                cfg, grid, cfg.gls_params, state.iic,
+                state.tke, state.gls, tke3, gls3, tke_nnew, gls_nnew,
+                state.u, state.v, bvf_g, Hz2, z_r2, z_w2, Huon2, Hvom2,
+                W2, state.Akv, state.Akt, state.Akk, state.Akp,
+                state.Lscale, sustr, svstr, bustr, bvstr,
+                Hwave=frc.get("Hwave"))
 
     # --- tracer corrector (main3d.F:814) ---
-    if tr_fused:
-        t2 = step3d_pallas.tracer_corrector_fused(
-            cfg, grid, t_nnew, t3, Huon2, Hvom2, W2, Hz2, z_r2, Akt)
-    else:
+    with jax.named_scope("step3d_t"):
         res = step3d_t(cfg, grid, state.iic, t_nnew, t3, Huon2, Hvom2,
                        W2, Hz2, z_r2, Akt, t_old=state.t, bry=bry,
                        clm=clm, sources=sources,
                        want_diags=collect_diags)
-        if collect_diags:
-            t2, dia_ts = res
-            dia_ts["hdiff"] = (t_nnew - t_nnew_premix) / Hz2
-        else:
-            t2 = res
+    if collect_diags:
+        t2, dia_ts = res
+        dia_ts["hdiff"] = (t_nnew - t_nnew_premix) / Hz2
+    else:
+        t2 = res
 
     # --- mean-age inert tracer pairs (AGE_MEAN; step3d_t.F:1507-1539):
     #     age concentration forced by the conservative partner ---
@@ -560,11 +492,12 @@ def step(cfg: Config, grid: Grid, state: State,
     # --- biological source/sink terms (main3d.F biology call) ---
     if cfg.biology is not None:
         from .ops.biology import apply_biology
-        t2 = apply_biology(cfg, grid, state.t, t2, Hz2, z_w2, srflx,
-                           z_r=z_r2, sustr=sustr, svstr=svstr,
-                           uwind=frc.get("Uwind", None),
-                           vwind=frc.get("Vwind", None),
-                           frc=frc, time=state.time)
+        with jax.named_scope("biology"):
+            t2 = apply_biology(cfg, grid, state.t, t2, Hz2, z_w2, srflx,
+                               z_r=z_r2, sustr=sustr, svstr=svstr,
+                               uwind=frc.get("Uwind", None),
+                               vwind=frc.get("Vwind", None),
+                               frc=frc, time=state.time)
 
     # --- sediment settling/erosion/bed exchange (main3d.F sediment
     #     call; Sediment/sediment.F driver) ---
@@ -584,9 +517,10 @@ def step(cfg: Config, grid: Grid, state: State,
                 tau_c=tau_c_b, tau_wav=tau_w_b,
                 phicw=1.5 * jnp.pi - frc.get("Dwave", zero2) - phic -
                 grid.angler)
-        t2, bed_mass = apply_sediment(cfg, grid, cfg.sed_params, t2,
-                                      bed_mass, Hz2, z_w2, bustr, bvstr,
-                                      tau_cw=tau_sed, **sed_kw)
+        with jax.named_scope("sediment"):
+            t2, bed_mass = apply_sediment(cfg, grid, cfg.sed_params, t2,
+                                          bed_mass, Hz2, z_w2, bustr,
+                                          bvstr, tau_cw=tau_sed, **sed_kw)
 
     new_state = state.replace(
         time=state.time + cfg.dt, iic=state.iic + 1,
@@ -615,14 +549,17 @@ def step(cfg: Config, grid: Grid, state: State,
 def make_stepper(cfg: Config, grid: Grid,
                  forcing_fn: Optional[Callable] = None,
                  donate: bool = True):
-    """jit-compiled single-step function state -> state."""
+    """jit-compiled single-step function state -> state.  The grid is a
+    jit argument, not a closed-over constant, so its arrays are not
+    embedded in the compiled program."""
     if cfg.nfast <= 0:
         raise ValueError(
             "cfg.nfast is 0 - the fast barotropic loop would be empty. "
             "Use the cfg returned by build_grid/the case builder "
             "(it finalizes hmin and nfast).")
-    f = lambda s: step(cfg, grid, s, forcing_fn)
-    return jax.jit(f, donate_argnums=(0,) if donate else ())
+    f = jax.jit(lambda g, s: step(cfg, g, s, forcing_fn),
+                donate_argnums=(1,) if donate else ())
+    return lambda s: f(grid, s)
 
 
 def run(cfg: Config, grid: Grid, state: State, nsteps: int,

@@ -22,8 +22,6 @@ from __future__ import annotations
 import importlib
 from typing import Tuple
 
-import yaml
-
 CASES = {
     "upwelling": ("roms_tpu.models.upwelling", "build", "make_config"),
     "benchmark": ("roms_tpu.models.benchmark", "build", "make_config"),
@@ -60,6 +58,7 @@ CASES = {
 
 def build_from_yaml(path: str):
     """Returns (cfg, grid, state0, forcing_fn, run_opts dict)."""
+    import yaml
     with open(path) as f:
         doc = yaml.safe_load(f)
     return build_from_dict(doc)

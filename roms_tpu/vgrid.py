@@ -168,10 +168,8 @@ def set_depth(h, zeta, hc, sc_r, Cs_r, sc_w, Cs_w, vtransform: int,
     zeta = jnp.asarray(zeta)
 
     def lift(a):
-        # accept (K,) tables or pre-lifted (K,1,1) (the Pallas diag
-        # kernel feeds VMEM-shaped tables; Mosaic has no 1-D vectors)
-        a = jnp.asarray(a, dtype=h.dtype)
-        return a[:, None, None] if a.ndim == 1 else a
+        # (K,) table -> (K,1,1) against the (Ny,Nx) planes
+        return jnp.asarray(a, dtype=h.dtype)[:, None, None]
 
     sc_r = lift(sc_r)
     Cs_r = lift(Cs_r)

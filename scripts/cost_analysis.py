@@ -1,44 +1,44 @@
-"""XLA cost analysis of the compiled BENCHMARK1 step: bytes accessed,
-flops, and implied HBM-roofline time vs measured."""
+"""XLA cost analysis of the compiled BENCHMARK1 f32 step on the GPU:
+bytes accessed, flops, and the time those bytes take at the card's
+published HBM bandwidth.
+
+    python scripts/cost_analysis.py
+"""
+import os
 import sys
 
-sys.path.insert(0, __file__.rsplit("/", 2)[0])
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
-import jax
+import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-from roms_tpu.models import benchmark
-from roms_tpu import stepping
+from roms_tpu import stepping  # noqa: E402
+from roms_tpu.models import benchmark  # noqa: E402
+from roms_tpu.utils import compcache, gpuinfo  # noqa: E402
 
 
 def main():
-    Lm, Mm, N = 512, 64, 30
-    cfg = benchmark.make_config(Lm=Lm, Mm=Mm, N=N, dt=150.0, ndtfast=20,
-                                dtype="float32")
+    dev = gpuinfo.require_gpu()[0]
+    bw = gpuinfo.peak_hbm_bytes_per_s(dev)
+    compcache.enable()
+    cfg = benchmark.make_config(dtype="float32")
     cfg, grid, state, ffn = benchmark.build(cfg)
 
-    one = jax.jit(lambda s: stepping.step(cfg, grid, s, ffn))
-    c = one.lower(state).compile()
+    one = jax.jit(lambda g, s: stepping.step(cfg, g, s, ffn))
+    c = one.lower(grid, state).compile()
     ca = c.cost_analysis()
     if isinstance(ca, list):
         ca = ca[0]
     by = ca.get("bytes accessed", 0.0)
-    fl = ca.get("flops", 0.0)
-    tr = ca.get("transcendentals", 0.0)
-    print(f"bytes accessed / step: {by/1e6:10.1f} MB")
-    print(f"flops / step         : {fl/1e9:10.2f} GF")
-    print(f"transcendentals      : {tr/1e6:10.1f} M")
-    print(f"roofline (820 GB/s)  : {by/8.2e11*1e3:10.3f} ms")
-    print(f"roofline (197 TF/s bf16 ~ 49 TF f32): {fl/4.9e13*1e3:10.3f} ms")
-    for k, v in sorted(ca.items()):
-        if "utilization" not in k and not k.startswith("bytes accessed"):
-            continue
+    print(f"card                 : {gpuinfo.card()} ({dev.device_kind})")
+    print(f"bytes accessed / step: {by / 1e6:10.1f} MB")
+    print(f"flops / step         : {ca.get('flops', 0.0) / 1e9:10.2f} GF")
+    print(f"transcendentals      : "
+          f"{ca.get('transcendentals', 0.0) / 1e6:10.1f} M")
+    print(f"bytes at {bw / 1e12:.2f} TB/s : {by / bw * 1e3:10.3f} ms")
     mem = c.memory_analysis()
-    if mem is not None:
-        print("temp size   :", getattr(mem, "temp_size_in_bytes", None))
-        print("output size :", getattr(mem, "output_size_in_bytes", None))
+    print("temp size   :", mem.temp_size_in_bytes)
+    print("output size :", mem.output_size_in_bytes)
 
 
 if __name__ == "__main__":

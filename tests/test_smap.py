@@ -49,8 +49,16 @@ def test_smap_matches_single_device():
     mesh = make_mesh(jax.devices()[:8], shape=(2, 4))
     stepB = smap.make_smap_stepper(cfg, grid, mesh, ffn)
     sb = smap.block(cfg, mesh, s0)
+    def placement(tree):    # empty leaves have no placement to keep
+        return [a.sharding for a in jax.tree_util.tree_leaves(tree)
+                if a.size]
+
+    placed = placement(sb)
     for _ in range(nsteps):
         sb = stepB(sb)
+    # the stepper returns the placement block() made, so its later calls
+    # reuse the program its first call compiled
+    assert placement(sb) == placed
     sB = jax.device_get(smap.unblock(cfg, mesh, sb))
 
     for name in ("zeta", "ubar", "vbar", "u", "v", "t"):
